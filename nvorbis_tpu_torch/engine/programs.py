@@ -83,6 +83,14 @@ replay and the output copy, and the next user's stream waits on an event
 recorded after that copy before it writes the slots.  Captures take one
 lock per process.
 
+**Tracing** (``utils/profiling.py``): a span named ``<kind>.upload``
+(``batch.upload`` on the fleet path, ``bulk.upload`` on ``read_all``)
+wraps every write of a chunk's arguments from the host: the eager path's
+uploads, a capture's slot creation and a replay's slot fills.  The counter
+``upload.bytes`` adds the ``nbytes`` of every numpy argument of every run,
+on every device (on the CPU, the bytes handed to the program); tables that
+are device tensors already do not count.
+
 There is no fallback: a capture or replay that fails raises.
 """
 
@@ -99,6 +107,7 @@ from nvorbis_tpu_torch.ops import (
     ola as _ola,
     residue as _residue,
 )
+from nvorbis_tpu_torch.utils import profiling
 from nvorbis_tpu_torch.utils.device import upload
 
 # the hand kernels by name: the module (or, for the floor kernel's symbol
@@ -144,6 +153,14 @@ def uploaded(flat, device):
     another device copied there (a mesh shard's rows); a tensor already on
     ``device`` is passed as it is."""
     return [None if a is None else upload(a, device) for a in flat]
+
+
+def _count_uploads(flat):
+    """Add the bytes of ``flat``'s numpy arguments, which every run writes
+    to its device, to the ``upload.bytes`` counter."""
+    if profiling.enabled():
+        profiling.count("upload.bytes", sum(
+            a.nbytes for a in flat if isinstance(a, np.ndarray)))
 
 
 def new_counts():
@@ -259,8 +276,11 @@ class ProgramCache:
         chunk's staging), device tensors (tables) and None; ``out`` is
         fresh for every chunk, never a graph's static output."""
         device = torch.device(device)
+        _count_uploads(flat)
         if device.type != "cuda":
-            return program(cfg, *uploaded(flat, device))[:rows], "eager"
+            with profiling.span(f"{kind}.upload"):
+                args = uploaded(flat, device)
+            return program(cfg, *args)[:rows], "eager"
         with torch.cuda.device(device):
             return self._run_cached((device, kind, cfg, signature(flat)),
                                     program, cfg, flat, device, rows)
@@ -268,7 +288,9 @@ class ProgramCache:
     def _run_cached(self, key, program, cfg, flat, device, rows):
         e, mode = self.plan(key)
         if mode == "eager":
-            out = program(cfg, *uploaded(flat, device))[:rows]
+            with profiling.span(f"{key[1]}.upload"):
+                args = uploaded(flat, device)
+            out = program(cfg, *args)[:rows]
         else:
             with e.lock:
                 if e.graph is None:
@@ -291,27 +313,31 @@ class ProgramCache:
         stream = torch.cuda.current_stream(e.out.device)
         if e.done is not None:
             stream.wait_event(e.done)
-        for i, a in enumerate(flat):
-            if isinstance(a, np.ndarray):
-                e.slots[i].copy_(torch.from_numpy(np.ascontiguousarray(a)),
-                                 non_blocking=True)
-            elif a is not None and a is not e.sources[i]:
-                e.slots[i].copy_(a, non_blocking=True)
-                e.sources[i] = a
+        with profiling.span(f"{e.key[1]}.upload"):
+            for i, a in enumerate(flat):
+                if isinstance(a, np.ndarray):
+                    e.slots[i].copy_(
+                        torch.from_numpy(np.ascontiguousarray(a)),
+                        non_blocking=True)
+                elif a is not None and a is not e.sources[i]:
+                    e.slots[i].copy_(a, non_blocking=True)
+                    e.sources[i] = a
 
     def _capture(self, e, program, cfg, flat, device):
         """Make ``e``'s slots from this chunk's arguments and capture
         ``program`` over them on the capture stream."""
         slots = []
-        for a in flat:
-            if isinstance(a, np.ndarray):
-                t = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype,
-                                device=device)
-                t.copy_(torch.from_numpy(np.ascontiguousarray(a)),
-                        non_blocking=True)
-            else:
-                t = None if a is None else a.to(device, copy=True)
-            slots.append(t)
+        with profiling.span(f"{e.key[1]}.upload"):
+            for a in flat:
+                if isinstance(a, np.ndarray):
+                    t = torch.empty(a.shape,
+                                    dtype=torch.from_numpy(a[:0]).dtype,
+                                    device=device)
+                    t.copy_(torch.from_numpy(np.ascontiguousarray(a)),
+                            non_blocking=True)
+                else:
+                    t = None if a is None else a.to(device, copy=True)
+                slots.append(t)
         slot_bytes = sum(t.numel() * t.element_size() for t in slots
                          if t is not None)
         stream = torch.cuda.current_stream(device)

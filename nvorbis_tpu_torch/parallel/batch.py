@@ -351,8 +351,17 @@ class BatchDecoder:
         tables_by_src = {}  # (id(src), serial) -> packet table: duplicate
         # source objects (a fleet decoding N copies of one blob) share one
         # container packetization pass; tables are read-only per cursor
-        for src in sources:
-            st = _StreamState()
+        with span("batch.open"):
+            for src in sources:
+                self._streams.append(
+                    self._open_stream(src, unpackers, tables_by_src))
+
+    def _open_stream(self, src, unpackers, tables_by_src):
+        """One source's :class:`_StreamState`: its reader, its unpacker
+        (shared by setup in ``unpackers``), its packet table (shared by
+        source and serial in ``tables_by_src``) and its planner."""
+        st = _StreamState()
+        with span("batch.headers"):
             st.reader = VorbisReader(src, engine="oracle")
             st.decoder = st.reader._stream_decoder
             skey = id(st.decoder._setup)
@@ -369,53 +378,54 @@ class BatchDecoder:
                     # failing the batch
                     st.native = None
                 unpackers[skey] = st.native
-            # clean-path packet table: one C++ pass packetizes the whole
-            # logical stream (ogg/fast_packets.py); any anomaly —
-            # corruption, resync, unbuffered source — keeps the Python
-            # provider, which owns the reference's recovery semantics
-            st.table = None
-            st.cursor = None  # PacketTableCursor when the table exists
-            if st.native is not None:
-                tkey = (id(src),
-                        st.decoder._packet_provider.stream_serial)
-                if tkey in tables_by_src:
-                    table = tables_by_src[tkey]
-                else:
+        # clean-path packet table: one C++ pass packetizes the whole
+        # logical stream (ogg/fast_packets.py); any anomaly —
+        # corruption, resync, unbuffered source — keeps the Python
+        # provider, which owns the reference's recovery semantics
+        st.table = None
+        st.cursor = None  # PacketTableCursor when the table exists
+        if st.native is not None:
+            tkey = (id(src),
+                    st.decoder._packet_provider.stream_serial)
+            if tkey in tables_by_src:
+                table = tables_by_src[tkey]
+            else:
+                with span("batch.packetize"):
                     table = table_for_decoder(st.decoder)
-                    tables_by_src[tkey] = table
-                if table is not None:
-                    st.table = table
-                    st.cursor = PacketTableCursor(table)
-            # vectorized (mode, window) -> (start, valid, total) and block
-            # size lookups for the windowed planner fast path
-            setup = st.decoder._setup
-            w_max = max(len(m.overlaps) for m in setup.modes)
-            st.ov_tab = np.zeros((len(setup.modes), w_max, 3), dtype=np.int64)
-            st.blk_tab = np.zeros(len(setup.modes), dtype=np.int64)
-            for mi, m in enumerate(setup.modes):
-                st.blk_tab[mi] = m.block_size
-                for wi, svt in enumerate(m.overlaps):
-                    st.ov_tab[mi, wi] = svt
-            st.planner = StreamPlanner()
-            st.carry = None
-            st.last_plan = None
-            st.chunk_base = 0
-            st.out = []
-            st.out_pos = 0
-            st.pcm = None
-            if st.table is not None:
-                # final granule bounds the output (end-trim only shrinks):
-                # preallocate the stream's PCM so chunk fetches write in
-                # place — no end-of-decode concatenate pass
-                gran, fl = st.table[2], st.table[3]
-                with_g = gran[(fl & 2) != 0]
-                if len(with_g):
-                    bound = int(with_g[-1]) + setup.block1_size
-                    st.pcm = np.empty(
-                        bound * setup.channels, dtype=np.float32
-                    )
-            st.done = False
-            self._streams.append(st)
+                tables_by_src[tkey] = table
+            if table is not None:
+                st.table = table
+                st.cursor = PacketTableCursor(table)
+        # vectorized (mode, window) -> (start, valid, total) and block
+        # size lookups for the windowed planner fast path
+        setup = st.decoder._setup
+        w_max = max(len(m.overlaps) for m in setup.modes)
+        st.ov_tab = np.zeros((len(setup.modes), w_max, 3), dtype=np.int64)
+        st.blk_tab = np.zeros(len(setup.modes), dtype=np.int64)
+        for mi, m in enumerate(setup.modes):
+            st.blk_tab[mi] = m.block_size
+            for wi, svt in enumerate(m.overlaps):
+                st.ov_tab[mi, wi] = svt
+        st.planner = StreamPlanner()
+        st.carry = None
+        st.last_plan = None
+        st.chunk_base = 0
+        st.out = []
+        st.out_pos = 0
+        st.pcm = None
+        if st.table is not None:
+            # final granule bounds the output (end-trim only shrinks):
+            # preallocate the stream's PCM so chunk fetches write in
+            # place — no end-of-decode concatenate pass
+            gran, fl = st.table[2], st.table[3]
+            with_g = gran[(fl & 2) != 0]
+            if len(with_g):
+                bound = int(with_g[-1]) + setup.block1_size
+                st.pcm = np.empty(
+                    bound * setup.channels, dtype=np.float32
+                )
+        st.done = False
+        return st
 
     @property
     def _capture(self):
@@ -623,10 +633,12 @@ class BatchDecoder:
                     break
                 pending.append(pool.submit(_fetch_and_emit, dispatch(chunk)))
                 while len(pending) > 2:
-                    pending.popleft().result()
+                    with span("batch.wait"):
+                        pending.popleft().result()
                 active = [st for st in active if not st.done]
             while pending:
-                pending.popleft().result()
+                with span("batch.wait"):
+                    pending.popleft().result()
 
         for st in members:
             dec = st.decoder
@@ -652,19 +664,21 @@ class BatchDecoder:
         # phase 1: pull packet windows per stream.  Streams with a packet
         # table (one prior C++ packetization pass) slice it with vectorized
         # mode peeks; others walk the Python provider per packet.
-        jobs = []  # dicts: st, n, view|raws, granules, eos, resync, ovh_bits
-        budget = CHUNK_FRAMES
-        size_counts = {}
-        for st in active:
-            if st.done or budget <= 0:
-                continue
-            if size_counts and max(size_counts.values()) >= CAP_PER_SIZE:
-                break
-            job = (self._pull_table if st.table is not None
-                   else self._pull_provider)(st, budget, size_counts)
-            if job is not None:
-                budget -= job["n"]
-                jobs.append(job)
+        with span("batch.pull"):
+            # dicts: st, n, view|raws, granules, eos, resync, ovh_bits
+            jobs = []
+            budget = CHUNK_FRAMES
+            size_counts = {}
+            for st in active:
+                if st.done or budget <= 0:
+                    continue
+                if size_counts and max(size_counts.values()) >= CAP_PER_SIZE:
+                    break
+                job = (self._pull_table if st.table is not None
+                       else self._pull_provider)(st, budget, size_counts)
+                if job is not None:
+                    budget -= job["n"]
+                    jobs.append(job)
         if not jobs:
             return None
 
@@ -696,49 +710,51 @@ class BatchDecoder:
                 unpacked = list(ex.map(_unpack, jobs))
 
         # phase 3: per-packet lapping plans + stats (order-sensitive)
-        stream_rows = []  # (st, r0, r1, plans|None, last_plan)
-        plan_cols = []    # per job: [nj, 5] int64 (ok, pos_base, start,
-                          # valid, total) — the dispatch-plane view; the
-                          # boxed FramePlan list exists only on the
-                          # sequential fallback path (bad packets)
-        r0 = 0
-        for job, arrs in zip(jobs, unpacked):
-            st = job["st"]
-            dec = st.decoder
-            setup = dec._setup
+        with span("batch.plan"):
+            stream_rows = []  # (st, r0, r1, plans|None, last_plan)
+            plan_cols = []    # per job: [nj, 5] int64 (ok, pos_base, start,
+                              # valid, total) — the dispatch-plane view; the
+                              # boxed FramePlan list exists only on the
+                              # sequential fallback path (bad packets)
+            r0 = 0
+            for job, arrs in zip(jobs, unpacked):
+                st = job["st"]
+                dec = st.decoder
+                setup = dec._setup
+                if self._sym:
+                    classes, ids, ys, used, has_floor, meta = arrs
+                    classes_l.append(classes)
+                    ids_l.append(ids)
+                else:
+                    residue, ys, used, has_floor, meta = arrs
+                pa, new_plans, st.last_plan = plan_job_arr(
+                    st.planner, st.ov_tab, st.blk_tab, setup, meta, job,
+                    dec._stats, st.last_plan,
+                )
+                plan_cols.append(pa)
+                stream_rows.append((st, r0, r0 + len(pa), new_plans,
+                                    st.last_plan))
+                r0 += len(pa)
+                if not self._sym:
+                    residues.append(residue)
+                yss.append(ys)
+                useds.append(used)
+                hfs.append(has_floor)
+                metas.append(meta)
+        with span("batch.gather"):
+            chunk = {
+                "ys": self._pad_cat(yss, P),
+                "used": self._pad_cat(useds, P),
+                "has_floor": np.concatenate(hfs),
+                "plan_arr": np.concatenate(plan_cols),
+                "stream_rows": stream_rows,
+                "meta": np.concatenate(metas),
+            }
             if self._sym:
-                classes, ids, ys, used, has_floor, meta = arrs
-                classes_l.append(classes)
-                ids_l.append(ids)
+                chunk["classes"] = np.concatenate(classes_l)
+                chunk["ids"] = np.concatenate(ids_l)
             else:
-                residue, ys, used, has_floor, meta = arrs
-            pa, new_plans, st.last_plan = plan_job_arr(
-                st.planner, st.ov_tab, st.blk_tab, setup, meta, job,
-                dec._stats, st.last_plan,
-            )
-            plan_cols.append(pa)
-            stream_rows.append((st, r0, r0 + len(pa), new_plans,
-                                st.last_plan))
-            r0 += len(pa)
-            if not self._sym:
-                residues.append(residue)
-            yss.append(ys)
-            useds.append(used)
-            hfs.append(has_floor)
-            metas.append(meta)
-        chunk = {
-            "ys": self._pad_cat(yss, P),
-            "used": self._pad_cat(useds, P),
-            "has_floor": np.concatenate(hfs),
-            "plan_arr": np.concatenate(plan_cols),
-            "stream_rows": stream_rows,
-            "meta": np.concatenate(metas),
-        }
-        if self._sym:
-            chunk["classes"] = np.concatenate(classes_l)
-            chunk["ids"] = np.concatenate(ids_l)
-        else:
-            chunk["residue"] = np.concatenate(residues)
+                chunk["residue"] = np.concatenate(residues)
         return chunk
 
     def _pull_provider(self, st, budget, size_counts):
@@ -803,190 +819,200 @@ class BatchDecoder:
         whose window holds a bad packet take build_segments' scalar walk,
         which owns the drain-the-previous-tail semantics
         (``NVorbis/StreamDecoder.cs:352-356``)."""
-        arr = chunk["plan_arr"]    # [R,5] ok, pos_base, start, valid, total
-        meta_all = chunk["meta"]
-        stream_rows = chunk["stream_rows"]
-        n_modes = len(setup0.modes)
-        R = arr.shape[0]
-        out_dev = self._device
-        n_shards = len(self._shards)
+        with span("batch.stage"):
+            # [R, 5]: ok, pos_base, start, valid, total
+            arr = chunk["plan_arr"]
+            meta_all = chunk["meta"]
+            stream_rows = chunk["stream_rows"]
+            n_modes = len(setup0.modes)
+            R = arr.shape[0]
+            out_dev = self._device
+            n_shards = len(self._shards)
 
-        ok = arr[:, 0] == 1
-        mode_r = meta_all[:, 1].astype(np.int64)
-        widx_r = meta_all[:, 2].astype(np.int64)
-        blk_vec = np.array([m.block_size for m in setup0.modes],
-                           dtype=np.int64)
-        # bad rows may carry garbage mode fields: clamp the index, zero
-        # the size so they never match a bucket
-        bsz = np.where(ok, blk_vec[np.minimum(mode_r, n_modes - 1)], 0)
+            ok = arr[:, 0] == 1
+            mode_r = meta_all[:, 1].astype(np.int64)
+            widx_r = meta_all[:, 2].astype(np.int64)
+            blk_vec = np.array([m.block_size for m in setup0.modes],
+                               dtype=np.int64)
+            # bad rows may carry garbage mode fields: clamp the index, zero
+            # the size so they never match a bucket
+            bsz = np.where(ok, blk_vec[np.minimum(mode_r, n_modes - 1)], 0)
 
-        slot_r = np.empty(R, dtype=np.int64)  # stream slot per chunk row
-        for st, r0, r1, _, _ in stream_rows:
-            slot_r[r0:r1] = self._stream_slot[id(st)]
+            slot_r = np.empty(R, dtype=np.int64)  # stream slot per chunk row
+            for st, r0, r1, _, _ in stream_rows:
+                slot_r[r0:r1] = self._stream_slot[id(st)]
 
-        # bucket sizes present, plus carry-only block sizes
-        ns = {int(n) for n in np.unique(bsz[ok])} if ok.any() else set()
-        carries = []
-        for st, _, _, _, _ in stream_rows:
-            if st.carry is not None:
-                carries.append(st)
-                ns.add(setup0.modes[st.carry[0]["meta"][1]].block_size)
+            # bucket sizes present, plus carry-only block sizes
+            ns = {int(n) for n in np.unique(bsz[ok])} if ok.any() else set()
+            carries = []
+            for st, _, _, _, _ in stream_rows:
+                if st.carry is not None:
+                    carries.append(st)
+                    ns.add(setup0.modes[st.carry[0]["meta"][1]].block_size)
 
-        row_base = 0
-        gr = np.full(R, -1, dtype=np.int64)  # chunk row -> flat bucket row
-        n_max = max(ns) if ns else setup0.block1_size
-        carry_rows = {}
-        # per bucket: (cfg bucket, frame-major arrays, flat ids or None,
-        # per-frame arrays), each array padded to the bucket's B_pad
-        staged = []
+            row_base = 0
+            # chunk row -> flat bucket row
+            gr = np.full(R, -1, dtype=np.int64)
+            n_max = max(ns) if ns else setup0.block1_size
+            carry_rows = {}
+            # per bucket: (cfg bucket, frame-major arrays, flat ids or None,
+            # per-frame arrays), each array padded to the bucket's B_pad
+            staged = []
 
-        for n in sorted(ns):
-            ridx = np.flatnonzero(ok & (bsz == n))
-            n2 = n // 2
-            # carries whose frame uses this block size
-            cs = [st for st in carries
-                  if setup0.modes[st.carry[0]["meta"][1]].block_size == n]
-            B_pad = _bucket_size(len(ridx) + len(cs), n_shards)
-            if self._sym:
-                st_geom = self._sym_info[n][0]
-                n_part, chr_c = st_geom.n_part, st_geom.chr_count
-                cls_b = np.full((B_pad, chr_c, max(1, n_part)),
-                                CLASS_SENTINEL, dtype=np.uint8)
-                base_b = np.zeros(B_pad, dtype=np.int32)
-                id_parts = []
-                pos = 0
-            else:
-                res_b = np.zeros((B_pad, C, n2), dtype=np.float32)
-            ys_b = np.zeros((B_pad, C, P), dtype=np.int16)
-            used_b = np.zeros((B_pad, C, P), dtype=bool)
-            hf_b = np.zeros((B_pad, C), dtype=bool)
-            widx_b = np.zeros(B_pad, dtype=np.int32)
-            tid_b = np.zeros(B_pad, dtype=np.int32)
-
-            j = 0
-            for st in cs:
-                crow, _ = st.carry
+            for n in sorted(ns):
+                ridx = np.flatnonzero(ok & (bsz == n))
+                n2 = n // 2
+                # carries whose frame uses this block size
+                cs = [st for st in carries if
+                      setup0.modes[st.carry[0]["meta"][1]].block_size == n]
+                B_pad = _bucket_size(len(ridx) + len(cs), n_shards)
                 if self._sym:
-                    cls_b[j, :, :n_part] = crow["classes"][:chr_c, :n_part]
-                    base_b[j] = pos
-                    id_parts.append(crow["ids"])
-                    pos += len(crow["ids"])
+                    st_geom = self._sym_info[n][0]
+                    n_part, chr_c = st_geom.n_part, st_geom.chr_count
+                    cls_b = np.full((B_pad, chr_c, max(1, n_part)),
+                                    CLASS_SENTINEL, dtype=np.uint8)
+                    base_b = np.zeros(B_pad, dtype=np.int32)
+                    id_parts = []
+                    pos = 0
                 else:
-                    res_b[j] = crow["residue"][:, :n2]
-                ys_b[j, :, : crow["ys"].shape[1]] = crow["ys"]
-                used_b[j, :, : crow["used"].shape[1]] = crow["used"]
-                hf_b[j] = crow["has_floor"]
-                widx_b[j] = crow["meta"][2]
-                tid_b[j] = crow["tid"]
-                carry_rows[id(st)] = row_base + j
-                j += 1
-            if len(ridx):
-                Rn = len(ridx)
-                dst = slice(j, j + Rn)
-                ys_b[dst] = chunk["ys"][ridx]
-                used_b[dst] = chunk["used"][ridx]
-                hf_b[dst] = chunk["has_floor"][ridx]
-                widx_b[dst] = widx_r[ridx]
-                tid_b[dst] = slot_r[ridx] * n_modes + mode_r[ridx]
-                if self._sym:
-                    cls_b[dst, :, :n_part] = (
-                        chunk["classes"][ridx][:, :chr_c, :n_part]
-                    )
-                    flat_rows, base_rows = flatten_ids(
-                        chunk["ids"][ridx], meta_all[ridx, 5]
-                    )
-                    base_b[dst] = pos + base_rows
-                    id_parts.append(flat_rows)
-                    pos += len(flat_rows)
-                else:
-                    res_b[dst] = chunk["residue"][ridx][:, :, :n2]
-                gr[ridx] = row_base + j + np.arange(Rn)
-                j += Rn
+                    res_b = np.zeros((B_pad, C, n2), dtype=np.float32)
+                ys_b = np.zeros((B_pad, C, P), dtype=np.int16)
+                used_b = np.zeros((B_pad, C, P), dtype=bool)
+                hf_b = np.zeros((B_pad, C), dtype=bool)
+                widx_b = np.zeros(B_pad, dtype=np.int32)
+                tid_b = np.zeros(B_pad, dtype=np.int32)
 
-            T, W = tabs[out_dev][n][1].shape[:2]
-            # the group key guarantees every mode of this block size shares
-            # the coupling topology
-            m = next(m for m in setup0.modes if m.block_size == n)
-            cpl = tuple(zip(m.mapping.coupling_mag, m.mapping.coupling_ang))
-            per_frame = (ys_b, used_b, hf_b, widx_b, tid_b)
-            if self._sym:
-                ids = pad_ids(id_parts, pos)
-                staged.append((("s", B_pad, n, P, W, T, cpl, st_geom,
-                                len(ids)), (cls_b, base_b), ids, per_frame))
-            else:
-                staged.append((("d", B_pad, n, P, W, T, cpl), (res_b,), None,
-                               per_frame))
-            row_base += B_pad
+                j = 0
+                for st in cs:
+                    crow, _ = st.carry
+                    if self._sym:
+                        cls_b[j, :, :n_part] = (
+                            crow["classes"][:chr_c, :n_part])
+                        base_b[j] = pos
+                        id_parts.append(crow["ids"])
+                        pos += len(crow["ids"])
+                    else:
+                        res_b[j] = crow["residue"][:, :n2]
+                    ys_b[j, :, : crow["ys"].shape[1]] = crow["ys"]
+                    used_b[j, :, : crow["used"].shape[1]] = crow["used"]
+                    hf_b[j] = crow["has_floor"]
+                    widx_b[j] = crow["meta"][2]
+                    tid_b[j] = crow["tid"]
+                    carry_rows[id(st)] = row_base + j
+                    j += 1
+                if len(ridx):
+                    Rn = len(ridx)
+                    dst = slice(j, j + Rn)
+                    ys_b[dst] = chunk["ys"][ridx]
+                    used_b[dst] = chunk["used"][ridx]
+                    hf_b[dst] = chunk["has_floor"][ridx]
+                    widx_b[dst] = widx_r[ridx]
+                    tid_b[dst] = slot_r[ridx] * n_modes + mode_r[ridx]
+                    if self._sym:
+                        cls_b[dst, :, :n_part] = (
+                            chunk["classes"][ridx][:, :chr_c, :n_part]
+                        )
+                        flat_rows, base_rows = flatten_ids(
+                            chunk["ids"][ridx], meta_all[ridx, 5]
+                        )
+                        base_b[dst] = pos + base_rows
+                        id_parts.append(flat_rows)
+                        pos += len(flat_rows)
+                    else:
+                        res_b[dst] = chunk["residue"][ridx][:, :, :n2]
+                    gr[ridx] = row_base + j + np.arange(Rn)
+                    j += Rn
+
+                T, W = tabs[out_dev][n][1].shape[:2]
+                # the group key guarantees every mode of this block size
+                # shares the coupling topology
+                m = next(m for m in setup0.modes if m.block_size == n)
+                cpl = tuple(zip(m.mapping.coupling_mag,
+                                m.mapping.coupling_ang))
+                per_frame = (ys_b, used_b, hf_b, widx_b, tid_b)
+                if self._sym:
+                    ids = pad_ids(id_parts, pos)
+                    staged.append((("s", B_pad, n, P, W, T, cpl, st_geom,
+                                    len(ids)), (cls_b, base_b), ids,
+                                   per_frame))
+                else:
+                    staged.append((("d", B_pad, n, P, W, T, cpl), (res_b,),
+                                   None, per_frame))
+                row_base += B_pad
 
         # --- per-stream segment tables laid out consecutively -------------
-        seg_s, seg_prim, seg_sec, seg_sl = [], [], [], []
-        ranges = []
-        out_off = 0
-        for st, r0, r1, plan_objs, last_plan_obj in stream_rows:
-            sid = id(st)
-            chunk_base = st.chunk_base
-            prev_plan = st.carry[1] if st.carry is not None else None
-            prev_row = carry_rows.get(sid)
-            okm = ok[r0:r1]
-            if r1 > r0:
-                s_, prim_, sec_, sl_ = build_segments(
-                    arr[r0:r1], gr[r0:r1], n_max, prev_plan,
-                    prev_row if prev_row is not None else 0, chunk_base,
-                )
-                seg_s.append(out_off + s_)
-                seg_prim.append(prim_)
-                seg_sec.append(sec_)
-                seg_sl.append(sl_)
+        with span("batch.segments"):
+            seg_s, seg_prim, seg_sec, seg_sl = [], [], [], []
+            ranges = []
+            out_off = 0
+            for st, r0, r1, plan_objs, last_plan_obj in stream_rows:
+                sid = id(st)
+                chunk_base = st.chunk_base
+                prev_plan = st.carry[1] if st.carry is not None else None
+                prev_row = carry_rows.get(sid)
+                okm = ok[r0:r1]
+                if r1 > r0:
+                    s_, prim_, sec_, sl_ = build_segments(
+                        arr[r0:r1], gr[r0:r1], n_max, prev_plan,
+                        prev_row if prev_row is not None else 0, chunk_base,
+                    )
+                    seg_s.append(out_off + s_)
+                    seg_prim.append(prim_)
+                    seg_sec.append(sec_)
+                    seg_sl.append(sl_)
 
-            length_total = st.planner.emitted - chunk_base
-            if length_total > 0:
-                ranges.append((st, out_off, length_total))
-                out_off += length_total
+                length_total = st.planner.emitted - chunk_base
+                if length_total > 0:
+                    ranges.append((st, out_off, length_total))
+                    out_off += length_total
 
-            # carry the last good frame into the next chunk (its tail may
-            # still lap into samples emitted there)
-            good_idx = np.flatnonzero(okm)
-            if len(good_idx):
-                k = r0 + int(good_idx[-1])
-                meta_k = meta_all[k]
-                crow = {
-                    "ys": chunk["ys"][k].copy(),
-                    "used": chunk["used"][k].copy(),
-                    "has_floor": chunk["has_floor"][k].copy(),
-                    "meta": meta_k,
-                    "tid": self._stream_slot[sid] * n_modes + int(meta_k[1]),
-                }
-                if self._sym:
-                    crow["classes"] = chunk["classes"][k].copy()
-                    crow["ids"] = chunk["ids"][k, : int(meta_k[5])].copy()
-                else:
-                    crow["residue"] = chunk["residue"][k].copy()
-                # the vectorized plan path boxes only the window's final
-                # plan; with every frame good, the last good row is it
-                st.carry = (crow, plan_objs[k - r0] if plan_objs is not None
-                            else last_plan_obj)
-            st.chunk_base = st.planner.emitted
+                # carry the last good frame into the next chunk (its tail may
+                # still lap into samples emitted there)
+                good_idx = np.flatnonzero(okm)
+                if len(good_idx):
+                    k = r0 + int(good_idx[-1])
+                    meta_k = meta_all[k]
+                    crow = {
+                        "ys": chunk["ys"][k].copy(),
+                        "used": chunk["used"][k].copy(),
+                        "has_floor": chunk["has_floor"][k].copy(),
+                        "meta": meta_k,
+                        "tid": (self._stream_slot[sid] * n_modes
+                                + int(meta_k[1])),
+                    }
+                    if self._sym:
+                        crow["classes"] = chunk["classes"][k].copy()
+                        crow["ids"] = (
+                            chunk["ids"][k, : int(meta_k[5])].copy())
+                    else:
+                        crow["residue"] = chunk["residue"][k].copy()
+                    # the vectorized plan path boxes only the window's
+                    # final plan; with every frame good, the last good row
+                    # is it
+                    st.carry = (crow, plan_objs[k - r0]
+                                if plan_objs is not None else last_plan_obj)
+                st.chunk_base = st.planner.emitted
 
-        L_real = out_off
-        if L_real == 0:
-            return lambda: None
-        self.chunks += 1
-        # quantized shapes, as the JAX package lays them out: padding
-        # segments start past L_pad, and the fetch takes only [0, L_real)
-        L_pad = pad_quantum(L_real, L_QUANTUM)
-        segs_s = (np.concatenate(seg_s) if seg_s
-                  else np.zeros(0, dtype=np.int64))
-        n_segs = len(segs_s)
-        S_pad = round_up(max(1, n_segs), 256)
-        segE = np.empty(S_pad + 1, dtype=np.int32)
-        seg = np.zeros((3, S_pad), dtype=np.int32)  # prim, sec, sec_len
-        segE[:n_segs] = segs_s
-        segE[n_segs:] = L_pad + 1 + np.arange(n_segs, S_pad + 1,
-                                              dtype=np.int32)
-        if n_segs:
-            seg[0, :n_segs] = np.concatenate(seg_prim)
-            seg[1, :n_segs] = np.concatenate(seg_sec)
-            seg[2, :n_segs] = np.concatenate(seg_sl)
+            L_real = out_off
+            if L_real == 0:
+                return lambda: None
+            self.chunks += 1
+            # quantized shapes, as the JAX package lays them out: padding
+            # segments start past L_pad, and the fetch takes only [0, L_real)
+            L_pad = pad_quantum(L_real, L_QUANTUM)
+            segs_s = (np.concatenate(seg_s) if seg_s
+                      else np.zeros(0, dtype=np.int64))
+            n_segs = len(segs_s)
+            S_pad = round_up(max(1, n_segs), 256)
+            segE = np.empty(S_pad + 1, dtype=np.int32)
+            seg = np.zeros((3, S_pad), dtype=np.int32)  # prim, sec, sec_len
+            segE[:n_segs] = segs_s
+            segE[n_segs:] = L_pad + 1 + np.arange(n_segs, S_pad + 1,
+                                                  dtype=np.int32)
+            if n_segs:
+                seg[0, :n_segs] = np.concatenate(seg_prim)
+                seg[1, :n_segs] = np.concatenate(seg_sec)
+                seg[2, :n_segs] = np.concatenate(seg_sl)
         i16 = int16_transport_enabled()
         with span("batch.program"):
             if self._mesh_devices is not None:
@@ -1020,7 +1046,8 @@ class BatchDecoder:
             self._capture_out.append(out)
             if self._capture_only:
                 return lambda: None
-        fetched = self._fetch(out, quantized=i16)
+        with span("batch.copy_start"):
+            fetched = self._fetch(out, quantized=i16)
 
         def finish():
             # runs on the fetch worker (decode_all): it touches only

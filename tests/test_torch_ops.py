@@ -1,5 +1,5 @@
 """``synth/device.py::synth_spectra`` of the port against the JAX package's,
-and ``utils/profiling.py::device_trace`` on the CPU."""
+and the port's spans in a ``torch.profiler`` Chrome trace on the CPU."""
 
 import json
 import os
@@ -13,7 +13,7 @@ from nvorbis_tpu.synth import device as j_dev
 from nvorbis_tpu.synth.oracle import imdct_basis
 from nvorbis_tpu_torch.synth import device as t_dev
 from nvorbis_tpu_torch.testgen.vorbis_writer import make_simple_spec
-from nvorbis_tpu_torch.utils.profiling import device_trace
+from nvorbis_tpu_torch.utils import profiling
 
 
 def _inputs(n, B=12, C=2, P=8, seed=0):
@@ -71,13 +71,31 @@ def test_synth_spectra_is_synth_core_over_a_window_of_ones():
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
+    """A ``torch.profiler`` trace of a ``read_all`` taken while tracing is
+    enabled, written as TensorBoard's Chrome trace, holds the device
+    stages' spans (``nvt.*``) and the program's host spans
+    (``bulk.upload``) beside them."""
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
     blob = make_simple_spec(channels=2, residue_type=2).build_stream(
         np.random.default_rng(5), 60)
     logdir = tmp_path / "trace"
-    with device_trace(str(logdir)):
-        nvt.VorbisReader(blob, device="cpu").read_all()
+    profiling.enable(True)
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU],
+                     on_trace_ready=tensorboard_trace_handler(str(logdir))):
+            nvt.VorbisReader(blob, device="cpu").read_all()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
     files = os.listdir(logdir)
     assert len(files) == 1 and files[0].endswith(".pt.trace.json")
     with open(logdir / files[0]) as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name", "").startswith("nvt.") for e in events)
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any(n.startswith("nvt.") for n in names)
+    assert "bulk.upload" in names

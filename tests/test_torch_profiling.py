@@ -1,15 +1,53 @@
-"""The port's device-stage spans (``nvorbis_tpu_torch/utils/profiling.py``):
-entered as ``record_function`` spans while ``torch.profiler`` runs, and a
-no-op outside one."""
+"""The port's tracing (``nvorbis_tpu_torch/utils/profiling.py``): the
+device-stage spans, entered as ``record_function`` spans while
+``torch.profiler`` runs and a no-op outside one; the host spans, which a
+running profiler stamps on its own timeline; the counters; and the leaf
+spans and the ``upload.bytes`` counter of a fleet decode."""
 
+import numpy as np
+import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from nvorbis_tpu_torch.engine import programs
+from nvorbis_tpu_torch.parallel.batch import BatchDecoder
+from nvorbis_tpu_torch.testgen.vorbis_writer import make_simple_spec
+from nvorbis_tpu_torch.utils import profiling
 from nvorbis_tpu_torch.utils.profiling import stage
+
+# the spans of a fleet decode below the phases that profile_headline_torch
+# reads, with the span each lies in (None: at the top of the chunk loop)
+LEAVES = {
+    "batch.open": None, "batch.headers": "batch.open",
+    "batch.packetize": "batch.open", "batch.pull": "batch.collect",
+    "batch.plan": "batch.collect", "batch.gather": "batch.collect",
+    "batch.stage": "batch.dispatch", "batch.segments": "batch.dispatch",
+    "batch.copy_start": "batch.dispatch", "batch.upload": "batch.program",
+    "batch.wait": None,
+}
 
 
 def _span_names(prof):
     return {e.name for e in prof.events()}
+
+
+@pytest.fixture
+def tracing():
+    """Tracing on and the recorder empty for the test, off and empty
+    after it."""
+    profiling.enable(True)
+    profiling.reset()
+    try:
+        yield
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+
+
+def _fleet(streams=2, packets=300, seed=0):
+    return [make_simple_spec(channels=2, residue_type=2).build_stream(
+        np.random.default_rng(seed + k), packets, serial=k + 1)
+        for k in range(streams)]
 
 
 def test_stage_is_a_span_under_the_profiler():
@@ -31,3 +69,131 @@ def test_stage_is_a_noop_without_profiler():
     assert not isinstance(a, record_function)
     with a:
         assert float((torch.ones(3) + 1).sum()) == 6.0
+
+
+def test_enabled_span_is_a_profiler_event_inside_its_parent(tracing):
+    """Under a profiler, an enabled span is an event of its own name,
+    nested in time inside the span around it on the same thread, and its
+    total is kept as without a profiler."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.span("t.outer"):
+            x = torch.ones(64) * 2
+            with profiling.span("t.inner"):
+                y = x + 1
+            z = y * 3
+    assert float(z.sum()) == 64 * 9
+    ev = {e.name: e for e in prof.events()
+          if e.name in ("t.outer", "t.inner")}
+    assert set(ev) == {"t.outer", "t.inner"}
+    outer, inner = ev["t.outer"], ev["t.inner"]
+    assert inner.thread == outer.thread
+    assert outer.time_range.start <= inner.time_range.start
+    assert inner.time_range.end <= outer.time_range.end
+    snap = profiling.snapshot()
+    assert snap["t.outer"][1] == snap["t.inner"][1] == 1
+    assert snap["t.outer"][0] >= snap["t.inner"][0] > 0
+
+
+def test_disabled_span_and_count_record_nothing(monkeypatch):
+    """Disabled, ``span`` times nothing and enters no ``record_function``,
+    even under a profiler, and ``count`` adds to no counter."""
+    was = profiling.enabled()
+    profiling.enable(False)
+    profiling.reset()
+
+    def entered(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            monkeypatch.setattr(profiling, "record_function", entered)
+            with profiling.span("t.off"):
+                torch.ones(4).sum()
+            monkeypatch.undo()
+        profiling.count("t.bytes", 5)
+        assert "t.off" not in _span_names(prof)
+        assert profiling.snapshot() == {}
+        assert profiling.counters() == {}
+    finally:
+        profiling.enable(was)
+
+
+def test_reset_clears_spans_and_counters(tracing):
+    """Counters add up while enabled, ``report`` prints them under the
+    span table, and ``reset`` clears both."""
+    with profiling.span("t.span"):
+        pass
+    profiling.count("t.bytes", 3)
+    profiling.count("t.bytes", np.int64(4))
+    assert profiling.counters() == {"t.bytes": 7}
+    text = profiling.report()
+    assert text.index("t.span") < text.index("t.bytes")
+    profiling.reset()
+    assert profiling.snapshot() == {} and profiling.counters() == {}
+    assert profiling.threads() == {}
+
+
+@pytest.mark.parametrize("lane", ["dense", "symbol"])
+def test_fleet_records_every_leaf_span(tracing, monkeypatch, lane):
+    """A traced CPU fleet decode records each leaf span at least once, on
+    the dense lane (``NVT_NO_SYMBOLS``) and on the symbol lane."""
+    if lane == "dense":
+        monkeypatch.setenv("NVT_NO_SYMBOLS", "1")
+    else:
+        monkeypatch.delenv("NVT_NO_SYMBOLS", raising=False)
+    bd = BatchDecoder(_fleet(), device="cpu")
+    bd.decode_all()
+    assert bd._sym == (lane == "symbol")
+    snap = profiling.snapshot()
+    on = profiling.threads()
+    for name in LEAVES:
+        assert snap.get(name, (0, 0))[1] >= 1, name
+        assert on[name] == ["MainThread"], name
+    assert snap["batch.packetize"][1] == snap["batch.headers"][1] == 2
+    assert profiling.counters()["upload.bytes"] > 0
+
+
+def test_leaf_spans_nest_in_their_phases_on_the_timeline(tracing):
+    """Under a profiler, each leaf span of a fleet decode lies inside the
+    phase span it splits, on the main thread."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        BatchDecoder(_fleet(), device="cpu").decode_all()
+    events = [e for e in prof.events() if e.name.startswith("batch.")]
+    for name, parent in LEAVES.items():
+        mine = [e for e in events if e.name == name]
+        assert mine, name
+        if parent is None:
+            continue
+        outer = [e for e in events if e.name == parent]
+        for e in mine:
+            assert any(o.thread == e.thread
+                       and o.time_range.start <= e.time_range.start
+                       and e.time_range.end <= o.time_range.end
+                       for o in outer), (name, parent)
+
+
+def test_upload_bytes_is_the_chunk_programs_numpy_arguments(
+        tracing, monkeypatch):
+    """On the dense lane, ``upload.bytes`` is the sum of the ``nbytes`` of
+    every numpy argument handed to a chunk program, counted here from the
+    arguments themselves; the tables, device tensors already, do not
+    count."""
+    monkeypatch.setenv("NVT_NO_SYMBOLS", "1")
+    want = {"bytes": 0, "runs": 0, "tensor_bytes": 0}
+    run = programs.run
+
+    def counted(kind, program, cfg, flat, device, rows):
+        want["runs"] += 1
+        for a in flat:
+            if isinstance(a, np.ndarray):
+                want["bytes"] += a.nbytes
+            elif torch.is_tensor(a):
+                want["tensor_bytes"] += a.numel() * a.element_size()
+        return run(kind, program, cfg, flat, device, rows)
+
+    monkeypatch.setattr(programs, "run", counted)
+    bd = BatchDecoder(_fleet(streams=2, packets=2600, seed=7), device="cpu")
+    bd.decode_all()
+    assert not bd._sym and bd.chunks == want["runs"] >= 2
+    assert want["tensor_bytes"] > 0
+    assert profiling.counters()["upload.bytes"] == want["bytes"] > 0

@@ -4,13 +4,18 @@ wall of one warm ``BatchDecoder`` decode of the headline goes.
 One warm-up decode, then one decode with the port's spans enabled
 (``nvorbis_tpu_torch/utils/profiling.py``).  The span table
 (``profiling.report``) goes to stderr; stdout carries one JSON line with
-each span's seconds, calls and the threads it ran on (``SPANS``), the wall,
-x-realtime and chunks of the traced decode, and the card's nvidia-smi name
-and power limit.  ``batch.unpack`` lies inside ``batch.collect``,
-``batch.program`` inside ``batch.dispatch`` and ``batch.emit`` inside
-``batch.fetch`` (``NESTED``).  ``batch.fetch`` runs on the ``nvt-fetch``
-worker while the main thread collects and dispatches the next chunk, so
-the spans overlap and do not add up to the wall.
+each span's seconds, calls and the threads it ran on (``SPANS``), the
+wall, x-realtime and chunks of the traced decode, and the card's
+nvidia-smi name and power limit.  ``NESTED`` names
+the span each lies in: ``batch.headers`` and ``batch.packetize`` in
+``batch.open``; ``batch.pull``, ``batch.unpack``, ``batch.plan`` and
+``batch.gather`` in ``batch.collect``; ``batch.stage``,
+``batch.segments``, ``batch.program`` and ``batch.copy_start`` in
+``batch.dispatch``; ``batch.upload`` in ``batch.program``; ``batch.emit``
+in ``batch.fetch``.  ``batch.fetch`` runs on the ``nvt-fetch`` worker
+while the main thread collects and dispatches the next chunk, and
+``batch.wait`` is the main thread waiting for it, so the spans overlap
+and do not add up to the wall.
 
 Usage: python tools/profile_headline_torch.py [streams] [repeats]
 (defaults ``bench_torch.py``'s: ``NVT_BENCH_STREAMS``, 8 copies, of the
@@ -30,10 +35,19 @@ if REPO not in sys.path:
 
 import bench_torch  # noqa: E402  (the repo root, inserted above)
 
-SPANS = ("batch.collect", "batch.unpack", "batch.dispatch", "batch.program",
-         "batch.fetch", "batch.emit")
-NESTED = {"batch.unpack": "batch.collect", "batch.program": "batch.dispatch",
-          "batch.emit": "batch.fetch"}
+SPANS = ("batch.open", "batch.headers", "batch.packetize", "batch.collect",
+         "batch.pull", "batch.unpack", "batch.plan", "batch.gather",
+         "batch.dispatch", "batch.stage", "batch.segments", "batch.program",
+         "batch.upload", "batch.copy_start", "batch.wait", "batch.fetch",
+         "batch.emit")
+NESTED = {"batch.headers": "batch.open", "batch.packetize": "batch.open",
+          "batch.pull": "batch.collect", "batch.unpack": "batch.collect",
+          "batch.plan": "batch.collect", "batch.gather": "batch.collect",
+          "batch.stage": "batch.dispatch",
+          "batch.segments": "batch.dispatch",
+          "batch.program": "batch.dispatch",
+          "batch.copy_start": "batch.dispatch",
+          "batch.upload": "batch.program", "batch.emit": "batch.fetch"}
 
 
 def profile(raws, device="cuda"):
