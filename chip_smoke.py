@@ -853,10 +853,11 @@ def bits_equal(a, b):
 def program_runs(log):
     """While active, every chunk program run through
     ``engine/programs.py`` appends ``(key, program, cfg, inputs, rows,
-    out, mode)`` to ``log``: its cache key, its inputs uploaded afresh (a
-    graph's slots are rewritten by the next chunk of its cfg; tables as
-    they are), the rows it returned and how it ran.  The recording wraps
-    the module function the decoders call and launches nothing itself."""
+    out, mode)`` to ``log``: its cache key, its inputs copied afresh (a
+    graph's slots and the fleet's staging ring are rewritten by later
+    chunks; tables as they are), the rows it returned and how it ran.  The
+    recording wraps the module function the decoders call and launches
+    nothing itself."""
     from nvorbis_tpu_torch.engine import programs
 
     run = programs.run
@@ -864,7 +865,7 @@ def program_runs(log):
     def recorded(kind, program, cfg, flat, device, rows):
         key = (torch.device(device), kind, cfg, programs.signature(flat))
         out, mode = run(kind, program, cfg, flat, device, rows)
-        log.append((key, program, cfg, programs.uploaded(flat, device), rows,
+        log.append((key, program, cfg, programs.copied(flat, device), rows,
                     out, mode))
         return out, mode
 

@@ -52,7 +52,10 @@ every chunk runs eagerly (the test path).
 
 **Static slots**: a captured graph reads fixed addresses.  Every numpy
 argument (the chunk's staging arrays) is uploaded straight into its slot
-on the current stream; a table argument (a device tensor) is copied into
+on the current stream, without the calling thread waiting for the copy
+where the array is page-locked (the fleet's staging ring,
+``utils/staging.py``, whose caller keeps the array unwritten until the
+copy is through); a table argument (a device tensor) is copied into
 its slot unless it is the very tensor last copied there.  The slots are
 the entry's own tensors on the entry's device, never the caller's, and
 the entry holds every tensor it reads by address.  A tensor argument on
@@ -89,7 +92,9 @@ wraps every write of a chunk's arguments from the host: the eager path's
 uploads, a capture's slot creation and a replay's slot fills.  The counter
 ``upload.bytes`` adds the ``nbytes`` of every numpy argument of every run,
 on every device (on the CPU, the bytes handed to the program); tables that
-are device tensors already do not count.
+are device tensors already do not count.  The counter ``stage.pinned_bytes``
+adds those of them that a CUDA run takes from page-locked memory (0 on the
+CPU).
 
 There is no fallback: a capture or replay that fails raises.
 """
@@ -155,12 +160,25 @@ def uploaded(flat, device):
     return [None if a is None else upload(a, device) for a in flat]
 
 
-def _count_uploads(flat):
+def copied(flat, device):
+    """``flat`` as :func:`uploaded` gives it, but every numpy array in a
+    tensor of its own, on the CPU too, where an upload is a view of the
+    array (a staging ring's, which a later chunk rewrites)."""
+    return [torch.tensor(a, device=device) if isinstance(a, np.ndarray)
+            else None if a is None else upload(a, device) for a in flat]
+
+
+def _count_uploads(flat, device):
     """Add the bytes of ``flat``'s numpy arguments, which every run writes
-    to its device, to the ``upload.bytes`` counter."""
+    to its device, to the ``upload.bytes`` counter, and those of them that
+    are page-locked on a CUDA ``device`` to ``stage.pinned_bytes``."""
     if profiling.enabled():
-        profiling.count("upload.bytes", sum(
-            a.nbytes for a in flat if isinstance(a, np.ndarray)))
+        host = [a for a in flat if isinstance(a, np.ndarray)]
+        profiling.count("upload.bytes", sum(a.nbytes for a in host))
+        profiling.count("stage.pinned_bytes", sum(
+            a.nbytes for a in host
+            if device.type == "cuda"
+            and torch.from_numpy(np.ascontiguousarray(a)).is_pinned()))
 
 
 def new_counts():
@@ -276,7 +294,7 @@ class ProgramCache:
         chunk's staging), device tensors (tables) and None; ``out`` is
         fresh for every chunk, never a graph's static output."""
         device = torch.device(device)
-        _count_uploads(flat)
+        _count_uploads(flat, device)
         if device.type != "cuda":
             with profiling.span(f"{kind}.upload"):
                 args = uploaded(flat, device)

@@ -108,6 +108,7 @@ from nvorbis_tpu_torch.utils.fetch import (
     int16_transport_enabled,
     quantize_i16,
 )
+from nvorbis_tpu_torch.utils import staging
 from nvorbis_tpu_torch.utils.hostmem import enable_page_recycling
 from nvorbis_tpu_torch.utils.profiling import span, stage
 
@@ -339,8 +340,9 @@ class BatchDecoder:
         self.chunks = 0  # chunks dispatched by decode_all
         self.programs = programs.new_counts()
         self.shard_launches = [0] * len(self._shards)
-        # fresh staging arrays every chunk: the page-recycling allocator
-        # policy keeps their pages warm (NVT_NO_MALLOPT opts out)
+        # the collect's fresh arrays every chunk (the unpack's outputs and
+        # their concatenations): the page-recycling allocator policy keeps
+        # their pages warm (NVT_NO_MALLOPT opts out)
         enable_page_recycling()
         self.clip_samples = clip_samples
 
@@ -506,9 +508,13 @@ class BatchDecoder:
             groups[self._group_key(st.decoder._setup, st.native)].append(st)
 
         try:
-            for key, members in groups.items():
-                self._decode_group(members)
+            # the chunks' program arguments are carved from a staging ring
+            # of the device, page-locked on a card (utils/staging.py)
+            with staging.borrowed(self._device) as self._ring:
+                for key, members in groups.items():
+                    self._decode_group(members)
         finally:
+            self._ring = None
             if self._unpack_pool is not None:
                 self._unpack_pool.shutdown(wait=False)
                 self._unpack_pool = None
@@ -819,7 +825,9 @@ class BatchDecoder:
         whose window holds a bad packet take build_segments' scalar walk,
         which owns the drain-the-previous-tail semantics
         (``NVorbis/StreamDecoder.cs:352-356``)."""
+        ring = self._ring
         with span("batch.stage"):
+            ring.begin()
             # [R, 5]: ok, pos_base, start, valid, total
             arr = chunk["plan_arr"]
             meta_all = chunk["meta"]
@@ -856,7 +864,8 @@ class BatchDecoder:
             n_max = max(ns) if ns else setup0.block1_size
             carry_rows = {}
             # per bucket: (cfg bucket, frame-major arrays, flat ids or None,
-            # per-frame arrays), each array padded to the bucket's B_pad
+            # per-frame arrays), each array padded to the bucket's B_pad and
+            # carved from the staging ring: every element is written below
             staged = []
 
             for n in sorted(ns):
@@ -869,18 +878,18 @@ class BatchDecoder:
                 if self._sym:
                     st_geom = self._sym_info[n][0]
                     n_part, chr_c = st_geom.n_part, st_geom.chr_count
-                    cls_b = np.full((B_pad, chr_c, max(1, n_part)),
-                                    CLASS_SENTINEL, dtype=np.uint8)
-                    base_b = np.zeros(B_pad, dtype=np.int32)
+                    cls_b = ring.take((B_pad, chr_c, max(1, n_part)),
+                                      np.uint8)
+                    base_b = ring.take(B_pad, np.int32)
                     id_parts = []
                     pos = 0
                 else:
-                    res_b = np.zeros((B_pad, C, n2), dtype=np.float32)
-                ys_b = np.zeros((B_pad, C, P), dtype=np.int16)
-                used_b = np.zeros((B_pad, C, P), dtype=bool)
-                hf_b = np.zeros((B_pad, C), dtype=bool)
-                widx_b = np.zeros(B_pad, dtype=np.int32)
-                tid_b = np.zeros(B_pad, dtype=np.int32)
+                    res_b = ring.take((B_pad, C, n2), np.float32)
+                ys_b = ring.take((B_pad, C, P), np.int16)
+                used_b = ring.take((B_pad, C, P), bool)
+                hf_b = ring.take((B_pad, C), bool)
+                widx_b = ring.take(B_pad, np.int32)
+                tid_b = ring.take(B_pad, np.int32)
 
                 j = 0
                 for st in cs:
@@ -893,8 +902,12 @@ class BatchDecoder:
                         pos += len(crow["ids"])
                     else:
                         res_b[j] = crow["residue"][:, :n2]
-                    ys_b[j, :, : crow["ys"].shape[1]] = crow["ys"]
-                    used_b[j, :, : crow["used"].shape[1]] = crow["used"]
+                    w = crow["ys"].shape[1]
+                    ys_b[j, :, :w] = crow["ys"]
+                    ys_b[j, :, w:] = 0
+                    w = crow["used"].shape[1]
+                    used_b[j, :, :w] = crow["used"]
+                    used_b[j, :, w:] = False
                     hf_b[j] = crow["has_floor"]
                     widx_b[j] = crow["meta"][2]
                     tid_b[j] = crow["tid"]
@@ -919,9 +932,31 @@ class BatchDecoder:
                         id_parts.append(flat_rows)
                         pos += len(flat_rows)
                     else:
-                        res_b[dst] = chunk["residue"][ridx][:, :, :n2]
+                        # one pass into the ring; mode="clip" (the indices
+                        # are in range) writes straight into it, where
+                        # "raise" would fill a temporary first
+                        src = chunk["residue"]
+                        if src.shape[2] == n2:
+                            np.take(src, ridx, axis=0, out=res_b[dst],
+                                    mode="clip")
+                        else:
+                            res_b[dst] = src[ridx, :, :n2]
                     gr[ridx] = row_base + j + np.arange(Rn)
                     j += Rn
+                # the padding rows, which no write above covers: zero, and
+                # the class sentinel
+                pad = slice(j, B_pad)
+                if self._sym:
+                    cls_b[:j, :, n_part:] = CLASS_SENTINEL
+                    cls_b[pad] = CLASS_SENTINEL
+                    base_b[pad] = 0
+                else:
+                    res_b[pad] = 0
+                ys_b[pad] = 0
+                used_b[pad] = False
+                hf_b[pad] = False
+                widx_b[pad] = 0
+                tid_b[pad] = 0
 
                 T, W = tabs[out_dev][n][1].shape[:2]
                 # the group key guarantees every mode of this block size
@@ -931,7 +966,7 @@ class BatchDecoder:
                                 m.mapping.coupling_ang))
                 per_frame = (ys_b, used_b, hf_b, widx_b, tid_b)
                 if self._sym:
-                    ids = pad_ids(id_parts, pos)
+                    ids = pad_ids(id_parts, pos, ring.take)
                     staged.append((("s", B_pad, n, P, W, T, cpl, st_geom,
                                     len(ids)), (cls_b, base_b), ids,
                                    per_frame))
@@ -1004,11 +1039,12 @@ class BatchDecoder:
                       else np.zeros(0, dtype=np.int64))
             n_segs = len(segs_s)
             S_pad = round_up(max(1, n_segs), 256)
-            segE = np.empty(S_pad + 1, dtype=np.int32)
-            seg = np.zeros((3, S_pad), dtype=np.int32)  # prim, sec, sec_len
+            segE = ring.take(S_pad + 1, np.int32)
+            seg = ring.take((3, S_pad), np.int32)  # prim, sec, sec_len
             segE[:n_segs] = segs_s
             segE[n_segs:] = L_pad + 1 + np.arange(n_segs, S_pad + 1,
                                                   dtype=np.int32)
+            seg[:, n_segs:] = 0
             if n_segs:
                 seg[0, :n_segs] = np.concatenate(seg_prim)
                 seg[1, :n_segs] = np.concatenate(seg_sec)
@@ -1035,14 +1071,17 @@ class BatchDecoder:
                 self.shard_launches[0] += _op.launches - before
                 programs.count(self.programs, mode)
                 parts = [(flat, out_dev)]
+            # the ring's region is written again once these copies are
+            # through
+            ring.release(self._shards)
         if self._capture is not None:
             # batch_program(cfg, *flat), or mesh_program under a mesh,
-            # replays this chunk: the chunk's arrays uploaded afresh (a
-            # graph's slots are rewritten by the next chunk of its cfg),
-            # the tables as they are
+            # replays this chunk: the chunk's arrays copied afresh (a
+            # graph's slots and the staging ring are rewritten by later
+            # chunks), the tables as they are
             self._capture.append(
                 (cfg, [a for f, dev in parts
-                       for a in programs.uploaded(f, dev)], L_real))
+                       for a in programs.copied(f, dev)], L_real))
             self._capture_out.append(out)
             if self._capture_only:
                 return lambda: None
@@ -1132,4 +1171,5 @@ class BatchDecoder:
         return ("mesh", tuple(cfgs), out_cfg), parts, out
 
     _stream_slot = None  # set in _decode_group per group
+    _ring = None  # the staging ring decode_all holds (utils/staging.py)
     _unpack_pool = None  # persistent C++-unpack thread pool (decode_all)

@@ -245,17 +245,20 @@ def round_ids(n: int) -> int:
     return max(IDS_QUANTUM, -(-n // IDS_QUANTUM) * IDS_QUANTUM)
 
 
-def pad_ids(parts, pos):
+def pad_ids(parts, pos, empty=np.empty):
     """A chunk bucket's flat ids: the concatenated ``parts`` (``pos`` ids
     in all) as int16, padded with -1 (missing) to ``round_ids(pos + 1)``.
     That is the JAX package's ``round_ids(pos)`` (parallel/batch.py:993,
     engine/bulk.py:521) wherever ``pos`` is not a multiple of
     ``IDS_QUANTUM``; at a multiple it is one quantum more, so that the
     vector always ends in a -1: :func:`reconstruct_spectrum` clamps a slot
-    past the ids to the last one, which then reads a missing id."""
-    flat = np.full(round_ids(pos + 1), -1, dtype=np.int16)
+    past the ids to the last one, which then reads a missing id.  The
+    array is ``empty(size, np.int16)`` (a staging ring's ``take``, say),
+    every element written."""
+    flat = empty(round_ids(pos + 1), np.int16)
+    flat[pos:] = -1
     if pos:
-        flat[:pos] = np.concatenate(parts).astype(np.int16)
+        np.concatenate(parts, out=flat[:pos], casting="unsafe")
     return flat
 
 

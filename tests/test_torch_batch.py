@@ -22,9 +22,11 @@ import nvorbis_tpu_torch as nvt
 import nvorbis_tpu_torch.parallel.batch as tbatch
 from nvorbis_tpu.testgen.vorbis_writer import make_simple_spec
 from nvorbis_tpu_torch.convert import group_tables
+from nvorbis_tpu_torch.engine import programs
 from nvorbis_tpu_torch.engine.bulk import overlap_add
 from nvorbis_tpu_torch.ops import imdct as op
 from nvorbis_tpu_torch.parallel.batch import batch_program
+from nvorbis_tpu_torch.utils import profiling, staging
 from test_torch_bulk import corrupt_packet
 
 TOL = 2e-6
@@ -330,6 +332,117 @@ def test_ola_forms_agree_with_padding_segments(seed):
     np.testing.assert_array_equal(
         overlap_add(*t, L).numpy(),
         _ola_loop(rows, segE, prim, sec, sec_len, L))
+
+
+# a fleet of many short chunks: each of the staging ring's regions is
+# reused several times, with carries, a bad packet and both group kinds
+RING_NAMES = ["stereo_r2_a", "corrupt", "stereo_r2_48k", "surround51_r2"]
+RING_PATCH = (("CHUNK_FRAMES", 32), ("CAP_PER_SIZE", 16))
+LANES = {"dense": (("NVT_NO_SYMBOLS", "1"),), "symbol": ()}
+
+
+def _ring_decode(monkeypatch, lane, fresh=False):
+    """The ring fleet's (pcm list, decoder, inputs) on ``lane``, where
+    ``inputs`` holds each chunk program's host arguments as (dtype, shape,
+    bytes); ``fresh`` stages each argument in a fresh zeroed array
+    instead, as before the ring."""
+    inputs = []
+    run = programs.run
+
+    def recorded(kind, program, cfg, flat, device, rows):
+        inputs.append([(a.dtype.str, a.shape, a.tobytes()) for a in flat
+                       if isinstance(a, np.ndarray)])
+        return run(kind, program, cfg, flat, device, rows)
+    with monkeypatch.context() as mp:
+        for k, v in LANES[lane]:
+            mp.setenv(k, v)
+        for attr, v in RING_PATCH:
+            mp.setattr(tbatch, attr, v)
+        if fresh:
+            mp.setattr(staging.StagingRing, "take",
+                       lambda self, shape, dtype: np.zeros(shape, dtype))
+        mp.setattr(programs, "run", recorded)
+        bd = nvt.BatchDecoder([_blob(n) for n in RING_NAMES], device="cpu")
+        return bd.decode_all(), bd, inputs
+
+
+def _assert_bit_equal(got, want):
+    """Two ring fleet decodes: the same PCM and the same bytes handed to
+    every chunk program, padding rows and tables' tails included."""
+    for name, a, b in zip(RING_NAMES, got[0], want[0]):
+        assert a.dtype == b.dtype == np.float32, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert len(got[2]) == len(want[2]) > 0
+    for k, (a, b) in enumerate(zip(got[2], want[2])):
+        assert a == b, f"chunk {k}: the program's host arguments differ"
+
+
+@pytest.mark.parametrize("lane", sorted(LANES))
+def test_staging_ring_reused_bit_equal(monkeypatch, lane):
+    """Chunks of at most 32 packets cycle through the staging ring, each
+    region taken several times: every stream bit-equal to its own
+    ``read_all``, and the PCM and every chunk program's host arguments
+    bit-equal to the same decode staged in fresh zeroed arrays."""
+    begun = []
+    begin = staging.StagingRing.begin
+
+    def counted(self):
+        begin(self)
+        begun.append(self._slot)
+    monkeypatch.setattr(staging.StagingRing, "begin", counted)
+    got = _ring_decode(monkeypatch, lane)
+    bd = got[1]
+    assert bd._sym == (lane == "symbol")
+    assert bd.chunks >= 4 * staging.DEPTH
+    assert all(begun.count(s) >= 4 for s in range(staging.DEPTH))
+    for name, pcm in zip(RING_NAMES, got[0]):
+        np.testing.assert_array_equal(pcm, _single(name), err_msg=name)
+    _assert_bit_equal(got, _ring_decode(monkeypatch, lane, fresh=True))
+
+
+@pytest.mark.parametrize("lane", sorted(LANES))
+def test_staging_ring_prefilled_with_nan(monkeypatch, lane):
+    """Every byte of the CPU's idle rings set to NaN's before a decode that
+    grows none of them: the padding rows, the carry rows' tails and the
+    tables' tails are written on every chunk, so the PCM and every chunk
+    program's host arguments are bit-equal to a decode staged in fresh
+    zeroed arrays."""
+    for _ in range(2):  # the regions at the size of the fleet's chunks
+        _ring_decode(monkeypatch, lane)
+    rings = staging.idle_rings("cpu")
+    assert rings and all(r.regions() for r in rings)
+    for r in rings:
+        for region in r.regions():
+            region.view(np.float32)[:] = np.nan
+    was = profiling.enabled()
+    profiling.enable(True)
+    profiling.reset()
+    try:
+        got = _ring_decode(monkeypatch, lane)
+        allocs = profiling.counters().get("stage.ring_allocs", 0)
+    finally:
+        profiling.enable(was)
+        profiling.reset()
+    assert allocs == 0
+    _assert_bit_equal(got, _ring_decode(monkeypatch, lane, fresh=True))
+
+
+@pytest.mark.parametrize("lane", sorted(LANES))
+def test_staging_ring_captured_chunks_replay(monkeypatch, lane):
+    """With the capture hook armed, every recorded chunk replays to its own
+    recorded output after the decode has rewritten the ring many times."""
+    with monkeypatch.context() as mp:
+        for k, v in LANES[lane]:
+            mp.setenv(k, v)
+        for attr, v in RING_PATCH:
+            mp.setattr(tbatch, attr, v)
+        bd = nvt.BatchDecoder([_blob(n) for n in RING_NAMES], device="cpu")
+        bd._capture = []
+        bd.decode_all()
+    assert len(bd._capture) == len(bd._capture_out) == bd.chunks
+    assert bd.chunks >= 4 * staging.DEPTH
+    for (cfg, flat, L_real), want in zip(bd._capture, bd._capture_out):
+        assert torch.equal(batch_program(cfg, *flat)[:L_real], want)
 
 
 @pytest.mark.cuda

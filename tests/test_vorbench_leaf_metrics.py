@@ -2,6 +2,9 @@
 counter, read from a traced tiny CPU run of the 5.1 configuration (the
 dense lane), as the harness reads them on the card."""
 
+import pytest
+
+from nvorbis_tpu_torch.utils import profiling
 from vorbench import cells, run
 from vorbench.tests.test_vorbench_harness import tiny_root
 
@@ -32,3 +35,28 @@ def test_a_traced_run_reports_every_leaf_metric(tmp_path):
     assert 1.152 <= got["fleet.upload_mb_per_audio_s"] <= 1.152 * 1.25 + 0.05
     dispatch = got["fleet.stage_share"] + got["fleet.segments_share"]
     assert dispatch <= got["fleet.dispatch_share"]
+
+
+@pytest.mark.parametrize("pinned, total, want", [
+    (None, 4096, None),  # a program without the counter: nothing
+    (0, 4096, 0.0),  # the CPU device: nothing page-locked
+    (1024, 4096, 25.0),
+    (4096, 4096, 100.0),  # every argument from the card's staging ring
+    (0, 0, None),  # no upload in the window
+])
+def test_pinned_upload_share_reads_the_two_counters(pinned, total, want):
+    """``fleet.pinned_upload_share`` is ``stage.pinned_bytes`` over
+    ``upload.bytes`` in percent, and nothing where the first counter is
+    missing or nothing was uploaded."""
+    read = cells.metric_reader("fleet.pinned_upload_share")
+    was = profiling.enabled()
+    profiling.enable(True)
+    profiling.reset()
+    try:
+        profiling.count("upload.bytes", total)
+        if pinned is not None:
+            profiling.count("stage.pinned_bytes", pinned)
+        assert read({"audio_s": 1.0, "window_s": 1.0, "spans": {}}) == want
+    finally:
+        profiling.enable(was)
+        profiling.reset()
