@@ -110,7 +110,7 @@ from nvorbis_tpu_torch.utils.fetch import (
 )
 from nvorbis_tpu_torch.utils import staging
 from nvorbis_tpu_torch.utils.hostmem import enable_page_recycling
-from nvorbis_tpu_torch.utils.profiling import span, stage
+from nvorbis_tpu_torch.utils.profiling import count, span, stage
 
 # arguments per bucket kind in batch_program's flat layout
 _BUCKET_ARGS = {"s": 15, "d": 10}
@@ -875,15 +875,7 @@ class BatchDecoder:
                 cs = [st for st in carries if
                       setup0.modes[st.carry[0]["meta"][1]].block_size == n]
                 B_pad = _bucket_size(len(ridx) + len(cs), n_shards)
-                if self._sym:
-                    st_geom = self._sym_info[n][0]
-                    n_part, chr_c = st_geom.n_part, st_geom.chr_count
-                    cls_b = ring.take((B_pad, chr_c, max(1, n_part)),
-                                      np.uint8)
-                    base_b = ring.take(B_pad, np.int32)
-                    id_parts = []
-                    pos = 0
-                else:
+                if not self._sym:
                     res_b = ring.take((B_pad, C, n2), np.float32)
                 ys_b = ring.take((B_pad, C, P), np.int16)
                 used_b = ring.take((B_pad, C, P), bool)
@@ -894,13 +886,7 @@ class BatchDecoder:
                 j = 0
                 for st in cs:
                     crow, _ = st.carry
-                    if self._sym:
-                        cls_b[j, :, :n_part] = (
-                            crow["classes"][:chr_c, :n_part])
-                        base_b[j] = pos
-                        id_parts.append(crow["ids"])
-                        pos += len(crow["ids"])
-                    else:
+                    if not self._sym:
                         res_b[j] = crow["residue"][:, :n2]
                     w = crow["ys"].shape[1]
                     ys_b[j, :, :w] = crow["ys"]
@@ -921,17 +907,7 @@ class BatchDecoder:
                     hf_b[dst] = chunk["has_floor"][ridx]
                     widx_b[dst] = widx_r[ridx]
                     tid_b[dst] = slot_r[ridx] * n_modes + mode_r[ridx]
-                    if self._sym:
-                        cls_b[dst, :, :n_part] = (
-                            chunk["classes"][ridx][:, :chr_c, :n_part]
-                        )
-                        flat_rows, base_rows = flatten_ids(
-                            chunk["ids"][ridx], meta_all[ridx, 5]
-                        )
-                        base_b[dst] = pos + base_rows
-                        id_parts.append(flat_rows)
-                        pos += len(flat_rows)
-                    else:
+                    if not self._sym:
                         # one pass into the ring; mode="clip" (the indices
                         # are in range) writes straight into it, where
                         # "raise" would fill a temporary first
@@ -943,14 +919,9 @@ class BatchDecoder:
                             res_b[dst] = src[ridx, :, :n2]
                     gr[ridx] = row_base + j + np.arange(Rn)
                     j += Rn
-                # the padding rows, which no write above covers: zero, and
-                # the class sentinel
+                # the padding rows, which no write above covers: zero
                 pad = slice(j, B_pad)
-                if self._sym:
-                    cls_b[:j, :, n_part:] = CLASS_SENTINEL
-                    cls_b[pad] = CLASS_SENTINEL
-                    base_b[pad] = 0
-                else:
+                if not self._sym:
                     res_b[pad] = 0
                 ys_b[pad] = 0
                 used_b[pad] = False
@@ -966,10 +937,11 @@ class BatchDecoder:
                                 m.mapping.coupling_ang))
                 per_frame = (ys_b, used_b, hf_b, widx_b, tid_b)
                 if self._sym:
-                    ids = pad_ids(id_parts, pos, ring.take)
+                    with span("batch.ids"):
+                        st_geom, frame_major, ids = self._stage_ids(
+                            n, cs, chunk, ridx, B_pad)
                     staged.append((("s", B_pad, n, P, W, T, cpl, st_geom,
-                                    len(ids)), (cls_b, base_b), ids,
-                                   per_frame))
+                                    len(ids)), frame_major, ids, per_frame))
                 else:
                     staged.append((("d", B_pad, n, P, W, T, cpl), (res_b,),
                                    None, per_frame))
@@ -1123,6 +1095,44 @@ class BatchDecoder:
                     st.out.append(flat.copy())
 
         return finish
+
+    def _stage_ids(self, n, carries, chunk, ridx, B_pad):
+        """One symbol bucket's VQ classes, frame bases and flat ids, carved
+        from the staging ring: the ``carries``' frames first, then the
+        chunk's rows ``ridx``, then class sentinels on the padding rows.
+        Counts the ids before padding (``sym.ids``) and the padded vector
+        handed to the program (``sym.ids_staged``).  Returns ``(geometry,
+        (classes, frame bases), ids)``."""
+        ring = self._ring
+        st_geom = self._sym_info[n][0]
+        n_part, chr_c = st_geom.n_part, st_geom.chr_count
+        cls_b = ring.take((B_pad, chr_c, max(1, n_part)), np.uint8)
+        base_b = ring.take(B_pad, np.int32)
+        id_parts = []
+        pos = j = 0
+        for st in carries:
+            crow = st.carry[0]
+            cls_b[j, :, :n_part] = crow["classes"][:chr_c, :n_part]
+            base_b[j] = pos
+            id_parts.append(crow["ids"])
+            pos += len(crow["ids"])
+            j += 1
+        if len(ridx):
+            dst = slice(j, j + len(ridx))
+            cls_b[dst, :, :n_part] = chunk["classes"][ridx][:, :chr_c, :n_part]
+            flat_rows, base_rows = flatten_ids(chunk["ids"][ridx],
+                                               chunk["meta"][ridx, 5])
+            base_b[dst] = pos + base_rows
+            id_parts.append(flat_rows)
+            pos += len(flat_rows)
+            j += len(ridx)
+        cls_b[:j, :, n_part:] = CLASS_SENTINEL
+        cls_b[j:] = CLASS_SENTINEL
+        base_b[j:] = 0
+        ids = pad_ids(id_parts, pos, ring.take)
+        count("sym.ids", pos)
+        count("sym.ids_staged", len(ids))
+        return st_geom, (cls_b, base_b), ids
 
     def _bucket_args(self, bucket, frame_major, ids, per_frame, tabs, dev):
         """One bucket's arguments in :func:`batch_program`'s layout: its

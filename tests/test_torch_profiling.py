@@ -10,6 +10,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from nvorbis_tpu_torch.engine import programs
+from nvorbis_tpu_torch.parallel import batch as batch_mod
 from nvorbis_tpu_torch.parallel.batch import BatchDecoder
 from nvorbis_tpu_torch.testgen.vorbis_writer import make_simple_spec
 from nvorbis_tpu_torch.utils import profiling
@@ -197,3 +198,86 @@ def test_upload_bytes_is_the_chunk_programs_numpy_arguments(
     assert not bd._sym and bd.chunks == want["runs"] >= 2
     assert want["tensor_bytes"] > 0
     assert profiling.counters()["upload.bytes"] == want["bytes"] > 0
+
+
+def _sym_fleet_ids(monkeypatch):
+    """Record, around every ``BatchDecoder._dispatch`` and chunk program of
+    a fleet decode, the VQ ids its chunk holds (the unpack's per-frame
+    counts of the good rows, and each carried frame's ids) and the length
+    of every symbol bucket's id vector that the program receives.  Chunks
+    of 256 packets, so the streams carry frames from chunk to chunk."""
+    seen = {"held": 0, "staged": 0, "carried": 0, "runs": 0}
+    dispatch = batch_mod.BatchDecoder._dispatch
+    run = programs.run
+
+    def held(self, chunk, *args):
+        ok = chunk["plan_arr"][:, 0] == 1
+        seen["held"] += int(chunk["meta"][ok, 5].sum())
+        for st, *_ in chunk["stream_rows"]:
+            if st.carry is not None and self._sym:
+                seen["held"] += len(st.carry[0]["ids"])
+                seen["carried"] += 1
+        return dispatch(self, chunk, *args)
+
+    def staged(kind, program, cfg, flat, device, rows):
+        seen["runs"] += 1
+        at = 0
+        for bucket in cfg[3]:
+            if bucket[0] == "s":
+                ids = flat[at + 1]
+                assert ids.dtype == np.int16 and ids.ndim == 1
+                assert len(ids) == bucket[-1]
+                seen["staged"] += len(ids)
+            at += batch_mod._BUCKET_ARGS[bucket[0]]
+        return run(kind, program, cfg, flat, device, rows)
+
+    monkeypatch.setattr(batch_mod.BatchDecoder, "_dispatch", held)
+    monkeypatch.setattr(programs, "run", staged)
+    monkeypatch.setattr(batch_mod, "CHUNK_FRAMES", 256)
+    monkeypatch.setattr(batch_mod, "CAP_PER_SIZE", 128)
+    return seen
+
+
+def test_symbol_lane_counts_the_ids_it_holds_and_stages(tracing,
+                                                        monkeypatch):
+    """On the symbol lane, ``sym.ids`` is the unpack's per-frame id counts
+    of every chunk's rows and carried frames, and ``sym.ids_staged`` the
+    lengths of the id vectors that the chunk programs receive, padding
+    included; ``batch.ids`` runs once a bucket, inside ``batch.stage``."""
+    monkeypatch.delenv("NVT_NO_SYMBOLS", raising=False)
+    seen = _sym_fleet_ids(monkeypatch)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        bd = BatchDecoder(_fleet(streams=3, packets=180, seed=5),
+                          device="cpu")
+        bd.decode_all()
+    assert bd._sym and bd.chunks == seen["runs"] >= 3
+    assert seen["carried"] >= 2
+    totals = profiling.counters()
+    assert totals["sym.ids"] == seen["held"] > 0
+    assert totals["sym.ids_staged"] == seen["staged"] >= totals["sym.ids"]
+    assert profiling.snapshot()["batch.ids"][1] >= bd.chunks
+    events = [e for e in prof.events() if e.name.startswith("batch.")]
+    stages = [e for e in events if e.name == "batch.stage"]
+    mine = [e for e in events if e.name == "batch.ids"]
+    assert mine
+    for e in mine:
+        assert any(o.thread == e.thread
+                   and o.time_range.start <= e.time_range.start
+                   and e.time_range.end <= o.time_range.end
+                   for o in stages)
+
+
+def test_dense_lane_records_no_symbol_tracing(tracing, monkeypatch):
+    """Under ``NVT_NO_SYMBOLS`` the same fleet takes the dense lane and
+    records neither ``batch.ids`` nor either symbol counter."""
+    monkeypatch.setenv("NVT_NO_SYMBOLS", "1")
+    seen = _sym_fleet_ids(monkeypatch)
+    bd = BatchDecoder(_fleet(streams=3, packets=180, seed=5), device="cpu")
+    bd.decode_all()
+    assert not bd._sym and bd.chunks == seen["runs"] >= 3
+    assert seen["staged"] == 0
+    assert "batch.ids" not in profiling.snapshot()
+    assert "batch.stage" in profiling.snapshot()
+    totals = profiling.counters()
+    assert "sym.ids" not in totals and "sym.ids_staged" not in totals
+    assert totals["upload.bytes"] > 0
