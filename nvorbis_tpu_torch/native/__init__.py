@@ -313,6 +313,15 @@ def load():
                 ctypes.c_int32,   # max_ids
                 ctypes.c_int32,   # n_threads
             ]
+            lib.nvt_stage_ids.restype = ctypes.c_int64
+            lib.nvt_stage_ids.argtypes = [
+                ctypes.c_int64,   # n_rows
+                ctypes.c_void_p,  # src [n_rows] i64 (int16* each)
+                ctypes.c_void_p,  # counts [n_rows] i32
+                ctypes.c_void_p,  # out [out_len] i16
+                ctypes.c_int64,   # out_len
+                ctypes.c_void_p,  # bases [n_rows] i32
+            ]
             _lib = lib
         except Exception:
             _lib_failed = True
@@ -359,6 +368,43 @@ def packetize(container_bytes, serial: int):
     if n2 != n:
         return None
     return data, offsets, granules, flags, overhead
+
+
+def row_pointers(rows):
+    """The address of each row of the C-contiguous 2-D array ``rows``,
+    int64 ``[len(rows)]``: the ``src`` of :func:`stage_ids`, valid while
+    ``rows`` lives."""
+    if rows.ndim != 2 or not rows.flags.c_contiguous:
+        raise ValueError("row_pointers takes a C-contiguous 2-D array")
+    return rows.ctypes.data + np.arange(len(rows), dtype=np.int64) * (
+        rows.strides[0])
+
+
+def stage_ids(src, counts, bases, empty=np.empty):
+    """One symbol bucket's flat int16 ids in one native row copy: the first
+    ``counts[k]`` ids at address ``src[k]`` (int64; :func:`row_pointers`
+    of an unpack's ids, or a compact row's ``ctypes.data``) for each row
+    in order, then -1 up to ``round_ids(pos + 1)``, where ``pos`` is
+    ``counts``' sum; each row's exclusive-cumsum base is written to
+    ``bases`` (int32, C-contiguous, ``len(src)`` long).  The layout of
+    ``pad_ids([flatten_ids(rows, counts)], pos)`` and its bases
+    (synth/residue_sym.py).  The vector is ``empty(size, np.int16)`` (a
+    staging ring's ``take``, say).  Returns ``(ids, pos)``."""
+    from nvorbis_tpu_torch.synth.residue_sym import round_ids
+
+    src = np.ascontiguousarray(src, dtype=np.int64)
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    n = len(src)
+    if (len(counts) != n or len(bases) != n or bases.dtype != np.int32
+            or not bases.flags.c_contiguous):
+        raise ValueError("stage_ids: src, counts and int32 C-contiguous "
+                         "bases of one length")
+    ids = empty(round_ids(int(counts.sum(dtype=np.int64)) + 1), np.int16)
+    pos = load().nvt_stage_ids(n, src.ctypes.data, counts.ctypes.data,
+                               ids.ctypes.data, len(ids), bases.ctypes.data)
+    if pos < 0:
+        raise ValueError("negative id count, or over 2**31 ids")
+    return ids, pos
 
 
 def _native_table_bits() -> int:

@@ -2485,6 +2485,35 @@ void nvt_unpack_window_sym(void* setup, const uint8_t* bytes,
   for (auto& th : threads) th.join();
 }
 
+// One symbol bucket's flat VQ ids (parallel/batch.py
+// BatchDecoder._stage_ids): row k's first counts[k] ids, read from
+// src[k] (an int16* carried as int64: a row of an unpack's [n, max_ids]
+// ids or a carried frame's compact ids), are copied to out at the row's
+// exclusive-cumsum base, which bases[k] receives; out[pos, out_len) is
+// filled with -1 (missing).  The layout of residue_sym.py's
+// pad_ids([flatten_ids(rows, counts)]), with no full-width gather.
+// Returns pos, the ids copied, or -1 (nothing written) when a count is
+// negative or the ids and their trailing -1 overrun out_len.
+int64_t nvt_stage_ids(int64_t n_rows, const int64_t* src,
+                      const int32_t* counts, int16_t* out, int64_t out_len,
+                      int32_t* bases) {
+  int64_t pos = 0;
+  for (int64_t k = 0; k < n_rows; ++k) {
+    if (counts[k] < 0) return -1;
+    pos += counts[k];
+  }
+  if (pos >= out_len || pos > INT32_MAX) return -1;
+  pos = 0;
+  for (int64_t k = 0; k < n_rows; ++k) {
+    bases[k] = (int32_t)pos;
+    std::memcpy(out + pos, (const int16_t*)(intptr_t)src[k],
+                (size_t)counts[k] * sizeof(int16_t));
+    pos += counts[k];
+  }
+  std::fill(out + pos, out + out_len, (int16_t)-1);
+  return pos;
+}
+
 // Vectorized lapping planner for one all-good window — the exact int64
 // math of engine/plan.plan_window (which documents the reference
 // semantics: StreamDecoder.cs:358-363/428-451 granule pickup + end trim).

@@ -80,7 +80,7 @@ from nvorbis_tpu_torch.engine.plan import (
     peek_mode_index,
     round_up,
 )
-from nvorbis_tpu_torch.native import unpacker_for
+from nvorbis_tpu_torch.native import row_pointers, stage_ids, unpacker_for
 from nvorbis_tpu_torch.ogg.fast_packets import (
     PacketTableCursor,
     plan_job_arr,
@@ -96,8 +96,6 @@ from nvorbis_tpu_torch.synth.device import (
 )
 from nvorbis_tpu_torch.synth.residue_sym import (
     CLASS_SENTINEL,
-    flatten_ids,
-    pad_ids,
     plan_static,
     plan_tables,
 )
@@ -758,7 +756,12 @@ class BatchDecoder:
             }
             if self._sym:
                 chunk["classes"] = np.concatenate(classes_l)
-                chunk["ids"] = np.concatenate(ids_l)
+                # the ids stay in the unpack's per-job [rows, max_ids]
+                # arrays: _stage_ids copies each row's prefix straight
+                # into the ring, by the address of its row
+                chunk["ids"] = ids_l
+                chunk["id_rows"] = np.concatenate(
+                    [row_pointers(a) for a in ids_l])
             else:
                 chunk["residue"] = np.concatenate(residues)
         return chunk
@@ -952,7 +955,8 @@ class BatchDecoder:
             seg_s, seg_prim, seg_sec, seg_sl = [], [], [], []
             ranges = []
             out_off = 0
-            for st, r0, r1, plan_objs, last_plan_obj in stream_rows:
+            for i, (st, r0, r1, plan_objs, last_plan_obj) in enumerate(
+                    stream_rows):
                 sid = id(st)
                 chunk_base = st.chunk_base
                 prev_plan = st.carry[1] if st.carry is not None else None
@@ -990,7 +994,7 @@ class BatchDecoder:
                     if self._sym:
                         crow["classes"] = chunk["classes"][k].copy()
                         crow["ids"] = (
-                            chunk["ids"][k, : int(meta_k[5])].copy())
+                            chunk["ids"][i][k - r0, : int(meta_k[5])].copy())
                     else:
                         crow["residue"] = chunk["residue"][k].copy()
                     # the vectorized plan path boxes only the window's
@@ -1100,37 +1104,36 @@ class BatchDecoder:
         """One symbol bucket's VQ classes, frame bases and flat ids, carved
         from the staging ring: the ``carries``' frames first, then the
         chunk's rows ``ridx``, then class sentinels on the padding rows.
-        Counts the ids before padding (``sym.ids``) and the padded vector
-        handed to the program (``sym.ids_staged``).  Returns ``(geometry,
-        (classes, frame bases), ids)``."""
+        The ids go in one native row copy (:func:`stage_ids`): each frame's
+        prefix from its carried ids or its row of the unpack's ids.
+        Counts the ids before padding (``sym.ids``), the ids the row copy
+        wrote (``sym.ids_copied``) and the padded vector handed to the
+        program (``sym.ids_staged``).  Returns ``(geometry, (classes, frame
+        bases), ids)``."""
         ring = self._ring
         st_geom = self._sym_info[n][0]
         n_part, chr_c = st_geom.n_part, st_geom.chr_count
         cls_b = ring.take((B_pad, chr_c, max(1, n_part)), np.uint8)
         base_b = ring.take(B_pad, np.int32)
-        id_parts = []
-        pos = j = 0
-        for st in carries:
+        j = len(carries) + len(ridx)
+        src = np.empty(j, np.int64)
+        counts = np.empty(j, np.int32)
+        for k, st in enumerate(carries):
             crow = st.carry[0]
-            cls_b[j, :, :n_part] = crow["classes"][:chr_c, :n_part]
-            base_b[j] = pos
-            id_parts.append(crow["ids"])
-            pos += len(crow["ids"])
-            j += 1
+            cls_b[k, :, :n_part] = crow["classes"][:chr_c, :n_part]
+            src[k] = crow["ids"].ctypes.data
+            counts[k] = len(crow["ids"])
         if len(ridx):
-            dst = slice(j, j + len(ridx))
+            dst = slice(len(carries), j)
             cls_b[dst, :, :n_part] = chunk["classes"][ridx][:, :chr_c, :n_part]
-            flat_rows, base_rows = flatten_ids(chunk["ids"][ridx],
-                                               chunk["meta"][ridx, 5])
-            base_b[dst] = pos + base_rows
-            id_parts.append(flat_rows)
-            pos += len(flat_rows)
-            j += len(ridx)
+            src[dst] = chunk["id_rows"][ridx]
+            counts[dst] = chunk["meta"][ridx, 5]
         cls_b[:j, :, n_part:] = CLASS_SENTINEL
         cls_b[j:] = CLASS_SENTINEL
         base_b[j:] = 0
-        ids = pad_ids(id_parts, pos, ring.take)
-        count("sym.ids", pos)
+        ids, pos = stage_ids(src, counts, base_b[:j], ring.take)
+        count("sym.ids", int(counts.sum(dtype=np.int64)))
+        count("sym.ids_copied", pos)
         count("sym.ids_staged", len(ids))
         return st_geom, (cls_b, base_b), ids
 

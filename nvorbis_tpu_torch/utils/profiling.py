@@ -13,7 +13,10 @@ it on the CUDA activity's timeline, nested in the spans around it.
 
 ``count(name, n)`` adds ``n`` to a counter while tracing is enabled
 (:func:`counters`); ``upload.bytes`` counts the numpy arguments that the
-chunk programs take from the host (``engine/programs.py``).
+chunk programs take from the host (``engine/programs.py``); on the symbol
+lane ``sym.ids`` counts the VQ ids a chunk stages, ``sym.ids_copied`` those
+the native row copy wrote (equal to it) and ``sym.ids_staged`` the padded
+id vectors (``parallel/batch.py``).
 
 ``stage(name)`` names the torch launches made inside it for
 ``torch.profiler``: a ``record_function`` span, by which chip_smoke.py's

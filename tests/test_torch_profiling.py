@@ -12,6 +12,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from nvorbis_tpu_torch.engine import programs
 from nvorbis_tpu_torch.parallel import batch as batch_mod
 from nvorbis_tpu_torch.parallel.batch import BatchDecoder
+from nvorbis_tpu_torch.synth.residue_sym import flatten_ids, pad_ids
 from nvorbis_tpu_torch.testgen.vorbis_writer import make_simple_spec
 from nvorbis_tpu_torch.utils import profiling
 from nvorbis_tpu_torch.utils.profiling import stage
@@ -204,10 +205,14 @@ def _sym_fleet_ids(monkeypatch):
     """Record, around every ``BatchDecoder._dispatch`` and chunk program of
     a fleet decode, the VQ ids its chunk holds (the unpack's per-frame
     counts of the good rows, and each carried frame's ids) and the length
-    of every symbol bucket's id vector that the program receives.  Chunks
-    of 256 packets, so the streams carry frames from chunk to chunk."""
-    seen = {"held": 0, "staged": 0, "carried": 0, "runs": 0}
+    of every symbol bucket's id vector that the program receives.  Each
+    bucket's staged ids and frame bases are held to what ``flatten_ids``
+    and ``pad_ids`` build from the same chunk and carries (``buckets``
+    counts them).  Chunks of 256 packets, so the streams carry frames from
+    chunk to chunk."""
+    seen = {"held": 0, "staged": 0, "carried": 0, "runs": 0, "buckets": 0}
     dispatch = batch_mod.BatchDecoder._dispatch
+    stage_ids = batch_mod.BatchDecoder._stage_ids
     run = programs.run
 
     def held(self, chunk, *args):
@@ -218,6 +223,24 @@ def _sym_fleet_ids(monkeypatch):
                 seen["held"] += len(st.carry[0]["ids"])
                 seen["carried"] += 1
         return dispatch(self, chunk, *args)
+
+    def checked(self, n, carries, chunk, ridx, B_pad):
+        parts = [st.carry[0]["ids"] for st in carries]
+        bases = list(np.cumsum([0] + [len(p) for p in parts])[:-1])
+        if len(ridx):
+            flat, base = flatten_ids(np.concatenate(chunk["ids"])[ridx],
+                                     chunk["meta"][ridx, 5])
+            bases += list(sum(map(len, parts)) + base)
+            parts.append(flat)
+        geom, (cls_b, base_b), ids = stage_ids(self, n, carries, chunk,
+                                               ridx, B_pad)
+        np.testing.assert_array_equal(
+            ids, pad_ids(parts, sum(map(len, parts))))
+        j = len(carries) + len(ridx)
+        np.testing.assert_array_equal(base_b[:j], bases)
+        assert not base_b[j:].any()
+        seen["buckets"] += 1
+        return geom, (cls_b, base_b), ids
 
     def staged(kind, program, cfg, flat, device, rows):
         seen["runs"] += 1
@@ -232,6 +255,7 @@ def _sym_fleet_ids(monkeypatch):
         return run(kind, program, cfg, flat, device, rows)
 
     monkeypatch.setattr(batch_mod.BatchDecoder, "_dispatch", held)
+    monkeypatch.setattr(batch_mod.BatchDecoder, "_stage_ids", checked)
     monkeypatch.setattr(programs, "run", staged)
     monkeypatch.setattr(batch_mod, "CHUNK_FRAMES", 256)
     monkeypatch.setattr(batch_mod, "CAP_PER_SIZE", 128)
@@ -243,7 +267,10 @@ def test_symbol_lane_counts_the_ids_it_holds_and_stages(tracing,
     """On the symbol lane, ``sym.ids`` is the unpack's per-frame id counts
     of every chunk's rows and carried frames, and ``sym.ids_staged`` the
     lengths of the id vectors that the chunk programs receive, padding
-    included; ``batch.ids`` runs once a bucket, inside ``batch.stage``."""
+    included; ``sym.ids_copied``, the ids of the native row copy, equals
+    ``sym.ids``, and every bucket's staged ids are those of
+    ``flatten_ids`` and ``pad_ids``; ``batch.ids`` runs once a bucket,
+    inside ``batch.stage``."""
     monkeypatch.delenv("NVT_NO_SYMBOLS", raising=False)
     seen = _sym_fleet_ids(monkeypatch)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -254,6 +281,8 @@ def test_symbol_lane_counts_the_ids_it_holds_and_stages(tracing,
     assert seen["carried"] >= 2
     totals = profiling.counters()
     assert totals["sym.ids"] == seen["held"] > 0
+    assert totals["sym.ids_copied"] == totals["sym.ids"]
+    assert seen["buckets"] >= bd.chunks
     assert totals["sym.ids_staged"] == seen["staged"] >= totals["sym.ids"]
     assert profiling.snapshot()["batch.ids"][1] >= bd.chunks
     events = [e for e in prof.events() if e.name.startswith("batch.")]
@@ -269,7 +298,7 @@ def test_symbol_lane_counts_the_ids_it_holds_and_stages(tracing,
 
 def test_dense_lane_records_no_symbol_tracing(tracing, monkeypatch):
     """Under ``NVT_NO_SYMBOLS`` the same fleet takes the dense lane and
-    records neither ``batch.ids`` nor either symbol counter."""
+    records neither ``batch.ids`` nor any symbol counter."""
     monkeypatch.setenv("NVT_NO_SYMBOLS", "1")
     seen = _sym_fleet_ids(monkeypatch)
     bd = BatchDecoder(_fleet(streams=3, packets=180, seed=5), device="cpu")
@@ -280,4 +309,6 @@ def test_dense_lane_records_no_symbol_tracing(tracing, monkeypatch):
     assert "batch.stage" in profiling.snapshot()
     totals = profiling.counters()
     assert "sym.ids" not in totals and "sym.ids_staged" not in totals
+    assert "sym.ids_copied" not in totals
+    assert seen["buckets"] == 0
     assert totals["upload.bytes"] > 0
